@@ -1,12 +1,12 @@
-"""mumemto_tpu — a TPU-native pangenome exact-matching engine.
+"""mumemto_tpu — an accelerator-native pangenome exact-matching engine.
 
 Finds multi-MUMs and multi-MEMs (maximal unique/exact matches with k/f/F
 occurrence filters) across collections of genome sequences, with outputs
 byte-compatible with vikshiv/mumemto v1.4.0 (.mums/.mems/.bumbl/.lengths and
-merge metadata), re-designed TPU-first: the suffix-array / LCP construction
-and the LCP-interval match scan are expressed as JAX/XLA array programs (with
-Pallas kernels on the hot paths) instead of the reference's sequential
-C++ streaming pipeline.
+merge metadata), re-designed for an accelerator: the suffix-array / LCP
+construction and the LCP-interval match scan are expressed as JAX/XLA array
+programs, run on an NVIDIA GPU, instead of the reference's sequential C++
+streaming pipeline.
 
 Public API (mirrors mumemto_library/mumemto_api.hpp:43-57):
     mum(sequences, min_match_len=20, use_revcomp=True, num_distinct=0)

@@ -24,12 +24,11 @@ and the stack context values used by merge thresholds are
 
 Emission order in the output file equals pop order = sort by (e asc, L desc).
 
-TPU cost model (measured on v5e): lax.sort of n=4M 3-operand ~ 9ms;
-random gather ~30ms; scatter ~40ms; cummax/scan ~1ms. Design rules used
-here: never build tables with gathers (use slices), replace range queries
-with scatter + directional scans where possible, replace per-element
-searches with sorts. Remaining gathers: the PSV/NSV log-walks (the future
-Pallas block-scan kernel replaces exactly those) and O(1) lookups.
+Cost model: sorts, slices and scans stream through memory; random gathers
+and scatters do not. Design rules used here: never build tables with
+gathers (use slices), replace range queries with scatter + directional
+scans where possible, replace per-element searches with sorts. Remaining
+gathers: the PSV/NSV log-walks and O(1) lookups.
 """
 
 from __future__ import annotations

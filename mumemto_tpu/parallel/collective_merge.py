@@ -2,11 +2,12 @@
 
 The reference's anchor merge is a sequential per-host left-fold over
 partition files (src/merge_candidates.cpp:211-219; fold core :106-157).
-SURVEY §2.3 names the TPU-native formulation: all_gather the per-partition
-anchor metadata (MUM bitvector, lengths, thresholds) across the mesh —
-DCN across hosts, ICI within a slice — then run the merge scan as a
+SURVEY §2.3 names the accelerator-native formulation: all_gather the
+per-partition anchor metadata (MUM bitvector, lengths, thresholds) across
+the mesh — over the network across hosts, over NVLink within one — then
+run the merge scan as a
 vectorized zip over anchor positions on device. This module implements
-exactly that (VERDICT r2 item 5).
+exactly that.
 
 Key reduction (proved by induction over the fold): the fold's future
 behavior depends ONLY on the dense per-anchor-position state

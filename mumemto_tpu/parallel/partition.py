@@ -5,8 +5,8 @@ README.md:124-142): run the finder independently per collection partition,
 emit per-anchor-position threshold metadata, then merge candidate sets. Here
 that becomes a sharded JAX program over a Mesh with axes
 
-  'part' — collection partitions (the reference's per-host runs; DCN axis)
-  'seq'  — sequence/SA-row sharding inside one partition (ICI axis)
+  'part' — collection partitions (the reference's per-host runs)
+  'seq'  — sequence/SA-row sharding inside one partition
 
 Each partition's index construction + interval scan runs data-parallel under
 vmap over the 'part'-sharded batch; reductions across partitions (match
@@ -122,7 +122,12 @@ def _partition_scan_matches(text, doc_ends, num_docs: int, min_match_len,
 
 
 class WindowCapacityError(RuntimeError):
-    """A compiled fixed-capacity match buffer (M) overflowed."""
+    """A compiled fixed-capacity match buffer (M) overflowed; `needed` is
+    the capacity that would have held the worst shard."""
+
+    def __init__(self, msg: str, needed: int):
+        super().__init__(msg)
+        self.needed = needed
 
 
 def _check_capacity(emit_counts, M: int, what: str):
@@ -134,7 +139,7 @@ def _check_capacity(emit_counts, M: int, what: str):
     if worst > M:
         raise WindowCapacityError(
             f"{what}: {worst} matches exceed the compiled window capacity "
-            f"M={M}; recompile with M >= {worst}")
+            f"M={M}; recompile with M >= {worst}", worst)
 
 
 def compile_sharded_scan(mesh, n: int, num_docs: int,

@@ -29,7 +29,7 @@ GSPMD stage map:
   stage B  the global 2-key sort becomes a BLOCK-BITONIC sort under
            shard_map: each shard locally sorts its block, then
            log2(P)*(log2(P)+1)/2 merge-split rounds exchange whole blocks
-           with the bitonic partner (ppermute over ICI) and keep the
+           with the bitonic partner (ppermute between devices) and keep the
            lower/upper half of the locally merged pair. Deterministic,
            capacity-safe (block sizes never change), and the classic
            accelerator formulation (XLA's own sort lowering is bitonic).
@@ -43,10 +43,10 @@ GSPMD stage map:
            L desc) — (e, L) uniquely identifies a canonical interval
            (ops/intervals._leftmost_mask), so the merge is unambiguous.
 
-HBM budget (chr19 x 20 haplotypes, BASELINE config 5): n ~ 2.33 G rows with
-revcomp; the row-space working set is ~6 int32 arrays x n / P per chip plus
-a 2x transient during the bitonic merge (~4.5 GB/chip at P = 8 vs 16 GB/chip
-on v5e), and the replicated dict-side tables are O(|D|) ~ tens of Mrows.
+Memory budget (chr19 x 20 haplotypes, BASELINE config 5): n ~ 2.33 G rows
+with revcomp; the row-space working set is ~6 int32 arrays x n / P per chip
+plus a 2x transient during the bitonic merge (~4.5 GB/chip at P = 8), and
+the replicated dict-side tables are O(|D|) ~ tens of Mrows.
 Row coordinates beyond 2^31 - 1 (just past chr19 x 20 scale) route
 automatically to the uint32 wide-coordinate path (parallel/widepfp.py,
 ~2^32-row ceiling); per-host partitions + MumemtoM merge
@@ -237,9 +237,14 @@ def compile_seq_pfp_step(mesh, axis: str, nr: int, nd: int, w: int,
     return jax.jit(step, out_shardings=(rep, None))
 
 
+# per-shard match window capacity of the first pass when M is not given
+FIRST_M = 4096
+
+
 def find_matches_seq_sharded(rb, opts, mesh, axis: str = "seq",
                              pfp_w: int = 10, pfp_mod: int = 100,
-                             M: int = 4096, parse_prefix: str | None = None,
+                             M: int | None = None,
+                             parse_prefix: str | None = None,
                              wide: bool | None = None,
                              shard_dict: bool | None = None,
                              force_gspmd: bool = False):
@@ -273,10 +278,26 @@ def find_matches_seq_sharded(rb, opts, mesh, axis: str = "seq",
     formulations). None = the MUMEMTO_SHARD_DICT=1 env override.
 
     force_gspmd: pin the GSPMD formulation (tests; also
-    MUMEMTO_SEQ_GSPMD=1)."""
+    MUMEMTO_SEQ_GSPMD=1).
+
+    M: per-shard match window capacity (a compile static). None sizes it
+    from the run: a first pass at FIRST_M, and if a shard found more
+    matches, one more pass at the capacity it needs. An explicit M that
+    overflows raises WindowCapacityError."""
     import os
 
     from mumemto_tpu import engine
+    from mumemto_tpu.parallel.partition import WindowCapacityError
+
+    if M is None:
+        kw = dict(axis=axis, pfp_w=pfp_w, pfp_mod=pfp_mod,
+                  parse_prefix=parse_prefix, wide=wide,
+                  shard_dict=shard_dict, force_gspmd=force_gspmd)
+        try:
+            return find_matches_seq_sharded(rb, opts, mesh, M=FIRST_M, **kw)
+        except WindowCapacityError as e:
+            return find_matches_seq_sharded(
+                rb, opts, mesh, M=ops_pfp.bucket(e.needed, lo=FIRST_M), **kw)
 
     size_cap = engine.interval_size_cap(opts, rb.num_docs)
     if size_cap is None or size_cap > 4096:

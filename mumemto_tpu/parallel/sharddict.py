@@ -1,10 +1,10 @@
 """Sharded dictionary index: the dict-side SA/LCP/groups distributed over
-the seq mesh axis (VERDICT r2 item 3).
+the seq mesh axis.
 
 parallel/seqpfp.py shards the O(n) expansion row space but REPLICATES the
-whole dictionary index (ops/pfp._dict_index) on every chip — 53% of the
-measured single-chip wall-clock, capping multi-chip speedup below 2x
-(Amdahl) and capping dict size at one chip's HBM. This module distributes
+whole dictionary index (ops/pfp._dict_index) on every chip — the largest
+stage of the single-device scan, which caps multi-chip speedup (Amdahl)
+and caps dict size at one chip's memory. This module distributes
 every nd-scale dict stage over the same axis with the SAME block-bitonic
 sort machinery:
 
@@ -36,15 +36,14 @@ lcpD entries inside a tie block are all clamped equal. The tests compare
 d/lcpD/grp_of_pos/grp_cross exactly and end-to-end .mums bytes
 (tests/test_sharddict.py); saD/isaD may differ in tie order only.
 
-Cost model / projected split (chr-scale, P chips): the replicated index
-is ~(rounds + 2*descent_levels + groups) random-gather/scatter passes
-over nd on EVERY chip. Sharded, each chip touches nd/P rows per pass;
-the descent's routed gathers trade each 2-gather level for two 3*Bd-row
-distributed sorts (sorts are ~10x cheaper per element than random
-gathers on this hardware — BASELINE.md round-2 measurements), so the
-crossover is P >= ~2-3. Memory: removes the replicated doubling history
-((L+1) x nd int32, the dict side's largest allocation) and all sort
-transients; the final tables (d, lcpD, grp_of_pos, grp_cross ~ 4 x nd)
+Cost model (chr-scale, P chips): the replicated index is ~(rounds +
+2*descent_levels + groups) random-gather/scatter passes over nd on EVERY
+chip. Sharded, each chip touches nd/P rows per pass; the descent's routed
+gathers trade each 2-gather level for two 3*Bd-row distributed sorts, so
+whether and from which P it pays depends on the sort-vs-gather cost
+ratio of the device (not measured on a GPU yet). Memory: removes the
+replicated doubling history ((L+1) x nd int32, the dict side's largest
+allocation) and all sort transients; the final tables (d, lcpD, grp_of_pos, grp_cross ~ 4 x nd)
 are still all_gathered for the expansion's table gather, and the slt
 sparse table stays full-height — both named follow-ups in ROADMAP.md.
 

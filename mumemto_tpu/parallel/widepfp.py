@@ -13,7 +13,7 @@ seqpfp.find_matches_seq_sharded):
    with an explicit carry, the classic blockwise decomposition.
 2. COORDINATE WIDTH. A logical GSPMD array indexes with int32, capping
    collections at 2^31 - 1 expansion rows, just *below* chr19 x 20 with
-   revcomp (~2.33 G rows; VERDICT r2 item 1). The reference reaches 2^40
+   revcomp (~2.33 G rows). The reference reaches 2^40
    via 5-byte SA entries (common.hpp:59-61). Blocks lift the ceiling to
    ~2^32 rows:
 
@@ -49,12 +49,12 @@ Stages (mirroring seqpfp, same block-bitonic sort machinery):
   D  per-shard window compaction in pad coordinates; boundary ownership
      = real region [H, H+B); outputs convert to uint32 global rows.
 
-HBM budget (chr19 x 20, n ~ 2.33 G rows, P = 8): row operands are
+Memory budget (chr19 x 20, n ~ 2.33 G rows, P = 8): row operands are
 5 x 4 B x n/P ~ 5.8 GB/chip plus the bitonic 2x transient on one operand
-set and the padded analysis block (~1.3 GB) — tight but inside 16 GB/chip
-v5e HBM for the row side. The REPLICATED dict side is the real chr-scale
-constraint (nd ~ 0.3-0.6 G for diverged collections; see ROADMAP) — at
-high divergence, split hosts with MumemtoM partitions instead.
+set and the padded analysis block (~1.3 GB) for the row side. The
+REPLICATED dict side is the real chr-scale constraint (nd ~ 0.3-0.6 G
+for diverged collections; see ROADMAP) — at high divergence, split
+hosts with MumemtoM partitions instead.
 
 Byte-equality with the single-device engine is pinned by
 tests/test_widepfp.py (forced wide mode, shard sweeps, all modes), and

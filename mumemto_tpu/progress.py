@@ -19,8 +19,8 @@ import os
 import sys
 import time
 
-# stage -> cumulative fraction of a typical run (measured 8 Mbp split;
-# names MUST match the phase() emissions in ops/pfp (build_pfp +
+# stage -> cumulative fraction of the bar (rough stage weights; names
+# MUST match the phase() emissions in ops/pfp (build_pfp +
 # pfp_scan_prepare split path) and engine — tests/test_progress.py
 # guards the mapping)
 _STAGES = (

@@ -1,11 +1,11 @@
 """Reference (input collection) builder: FASTA ingestion -> concatenated text.
 
-TPU-first equivalent of src/ref_builder.cpp: reads each input FASTA (plain or
+Equivalent of src/ref_builder.cpp: reads each input FASTA (plain or
 gzip), uppercases, concatenates all records of a file into one document laid
 out as ``fwd $ revcomp $`` (when revcomp is on, the default;
 ref_builder.cpp:255-292), and exposes the per-document lengths and document
 boundary positions needed by the match scan. The text is produced as a numpy
-uint8 array ready to be placed in device HBM.
+uint8 array ready to be placed in device memory.
 """
 
 from __future__ import annotations

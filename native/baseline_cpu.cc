@@ -1,6 +1,6 @@
 // Measured single-core CPU baseline for the multi-MUM/MEM pipeline.
 //
-// Purpose (VERDICT r2 item 4): the reference C++ cannot be compiled offline
+// Purpose: the reference C++ cannot be compiled offline
 // (its thirdparty deps are FetchContent'd from GitHub), so this standalone,
 // dependency-free single-core implementation of the same pipeline provides
 // the measured "single-core C++" denominator for bench.py's vs_baseline.

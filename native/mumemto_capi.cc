@@ -1,4 +1,4 @@
-// libmumemto_tpu.so — C ABI over the TPU (JAX) match-finding engine.
+// libmumemto_tpu.so — C ABI over the JAX (GPU) match-finding engine.
 //
 // Counterpart of the reference's shared library + C interface
 // (mumemto_library/mumemto_api.cpp:489-643): the engine here is the Python
@@ -76,8 +76,6 @@ PyObject* import_library() {
       }
     }
   }
-  const char* prelude = std::getenv("MUMEMTO_TPU_CABI_PRELUDE");
-  if (prelude != nullptr && *prelude) PyRun_SimpleString(prelude);
   return PyImport_ImportModule("mumemto_tpu.library");
 }
 

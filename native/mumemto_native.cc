@@ -1,4 +1,4 @@
-// TPU-native host runtime: FASTA ingestion data-loader (C++).
+// Host runtime: FASTA ingestion data-loader (C++).
 //
 // Native equivalent of the reference's kseq.h + zlib layer
 // (/root/reference/include/kseq.h, src/ref_builder.cpp:211-314): streams a

@@ -2,7 +2,7 @@
  *
  * Native equivalent of the reference's libmumemto C interface
  * (mumemto_library/mumemto.h:33-94): documents in, match views out, with a
- * thread-local last-error string. The engine itself is the TPU (JAX)
+ * thread-local last-error string. The engine itself is the JAX (GPU)
  * pipeline, hosted in an embedded CPython interpreter; this header is plain
  * C and has no Python or JAX types in its surface.
  *
@@ -20,7 +20,7 @@
  * Link: -lmumemto_tpu (and ensure libpython3.x is resolvable).
  *
  * Runtime model / cost notes:
- *  - The first call initializes the embedded interpreter AND the JAX/TPU
+ *  - The first call initializes the embedded interpreter AND the JAX
  *    backend: expect seconds (warm compile cache) to minutes (cold cache,
  *    new shapes) of one-time latency. Subsequent calls in the same process
  *    reuse the live backend and run at engine speed.

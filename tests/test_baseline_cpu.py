@@ -2,8 +2,7 @@
 trusted oracle on counts and an order-independent occurrence checksum.
 
 This pins the vs_baseline denominator to a *correct* single-core C++
-implementation of the same pipeline (SA-IS + Kasai + interval stack) —
-VERDICT r2 item 4."""
+implementation of the same pipeline (SA-IS + Kasai + interval stack)."""
 
 import json
 import os

@@ -45,8 +45,7 @@ def test_c_consumer_matches_python_library(capi_exe, rng):
 
     env = dict(os.environ)
     env["MUMEMTO_TPU_PYROOT"] = ROOT
-    env["MUMEMTO_TPU_CABI_PRELUDE"] = (
-        'import jax; jax.config.update("jax_platforms", "cpu")')
+    env["JAX_PLATFORMS"] = "cpu"
     r = subprocess.run([capi_exe], input="\n".join(docs) + "\n",
                        capture_output=True, text=True, env=env, timeout=600)
     assert r.returncode == 0, r.stderr

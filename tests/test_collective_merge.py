@@ -1,8 +1,8 @@
 """Collective (device) anchor merge == host anchor merge, byte for byte.
 
 The collective formulation all_gathers per-partition dense anchor arrays
-over a 'part' mesh axis and folds on device (SURVEY §2.3 row 2 / VERDICT
-r2 item 5); the host path is analysis/merge.anchor_merge. Includes an
+over a 'part' mesh axis and folds on device (SURVEY §2.3 row
+2); the host path is analysis/merge.anchor_merge. Includes an
 overlapping-MUM chain case (the emit-position trace through intermediate
 states, where a naive final-position cover would mispick the originating
 MUM)."""

@@ -107,3 +107,21 @@ def test_dcn_two_process_equals_single(rng, tmp_path, collective):
     with open(dcn_prefix + ".mums", "rb") as f:
         got = f.read()
     assert want == got
+
+
+@pytest.mark.parametrize("env,want", [("", None), ("2", [2]),
+                                      ("0,1", [0, 1])])
+def test_initialize_pins_local_cards(monkeypatch, env, want):
+    """One process per card: MUMEMTO_LOCAL_DEVICE_IDS reaches
+    jax.distributed.initialize as local_device_ids."""
+    import jax
+
+    from mumemto_tpu.parallel import dcn
+    seen = {}
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: seen.update(kw))
+    monkeypatch.setenv("MUMEMTO_LOCAL_DEVICE_IDS", env)
+    dcn.initialize("localhost:1234", 4, 1)
+    assert seen["local_device_ids"] == want
+    assert (seen["coordinator_address"], seen["num_processes"],
+            seen["process_id"]) == ("localhost:1234", 4, 1)

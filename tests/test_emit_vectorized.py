@@ -1,4 +1,4 @@
-"""Pin the vectorized host emit/threshold paths (VERDICT r3 item 4).
+"""Pin the vectorized host emit/threshold paths.
 
 The emitters became numpy array programs (engine._emit_mems line assembly,
 MatchResults.mum_lines, engine.thresh_arrays); these tests pin their output
@@ -182,7 +182,7 @@ def test_thresh_arrays_zero_length_mums():
 
 
 def test_emit_speed_1e5_matches():
-    """VERDICT r3 item 4 'done' bar: a 10^5-match set emits in < 2 s of
+    """A 10^5-match set emits in < 2 s of
     host time (was minutes-class with per-match Python loops at chr
     scale). Measured in process CPU time so concurrent test workers or a
     busy host cannot flake the bound (it did under xdist -n 4)."""

@@ -68,8 +68,7 @@ def test_partial_mum_properties(rng):
 
 def test_mem_properties(rng):
     """MEM-mode property check: exact occurrence, occurrence-set
-    completeness, k/f/F conditions, maximality both sides (VERDICT r1
-    weak #2: no MEM property test existed)."""
+    completeness, k/f/F conditions, maximality both sides."""
     from mumemto_tpu import properties
 
     rep = rand_seq(rng, 60)

@@ -1,4 +1,4 @@
-"""Mid-scale correctness evidence (VERDICT r1 weak #3/#5).
+"""Mid-scale correctness evidence.
 
 The byte-equality suite runs at <= ~16 Kb; this test runs ~1 Mbp of
 synthetic pangenome (2 Mchar text with revcomp) through BOTH backends —

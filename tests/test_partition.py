@@ -89,7 +89,7 @@ def test_sharded_scan_equals_single_device(rng):
 
 def test_window_capacity_overflow_raises(rng):
     """The fixed-M compiled paths must fail loudly, never silently drop
-    matches, when the emit count exceeds M (VERDICT r1 weak #4)."""
+    matches, when the emit count exceeds M."""
     import jax
     import jax.numpy as jnp
     import pytest

@@ -1,5 +1,6 @@
 """PFP backend golden equivalence: identical bytes to the trusted oracle."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -173,3 +174,17 @@ def test_pfp_operand_packing_modes(rng, monkeypatch, mode):
     monkeypatch.setattr(ops_pfp, "_pack_da_mode", forced)
     got = engine.find_matches(rb, opts, backend="pfp").output_bytes()
     assert want == got
+
+
+@pytest.mark.parametrize("n", [64, 100, 256])
+def test_rmq_query_every_range(rng, n):
+    """The two-window range minimum equals numpy's min over every
+    (lo, hi) pair, including lengths that are exact powers of two."""
+    vals = rng.integers(0, 1000, n).astype(np.int32)
+    table = ops_pfp._rmq_prepare(jnp.asarray(vals))
+    lo, hi = np.triu_indices(n)
+    got = np.asarray(ops_pfp._rmq_query(
+        table, jnp.asarray(lo, jnp.int32), jnp.asarray(hi, jnp.int32)))
+    want = np.concatenate([np.minimum.accumulate(vals[i:])
+                           for i in range(n)])
+    np.testing.assert_array_equal(got, want)

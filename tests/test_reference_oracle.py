@@ -49,11 +49,11 @@ def _run_ref(ref_bins, name, args, cwd):
     assert res.returncode == 0, f"{name} failed: {res.stderr[-1500:]}"
 
 
-def _assert_files_equal(ref_prefix, tpu_prefix, exts):
+def _assert_files_equal(ref_prefix, our_prefix, exts):
     for ext in exts:
         with open(str(ref_prefix) + ext, "rb") as f:
             want = f.read()
-        with open(str(tpu_prefix) + ext, "rb") as f:
+        with open(str(our_prefix) + ext, "rb") as f:
             got = f.read()
         assert got == want, f"{ext} differs from the reference binary"
     return want  # last artifact, for non-emptiness checks
@@ -64,11 +64,11 @@ def _cross_check(ref_bins, tmp_path, genomes, flags, exts, names=None):
     names = names or [f"g{i}" for i in range(len(genomes))]
     paths = _write_fastas(tmp_path, genomes, names)
     ref_out = str(tmp_path / "ref_out")
-    tpu_out = str(tmp_path / "tpu_out")
+    our_out = str(tmp_path / "our_out")
     _run_ref(ref_bins, "mumemto_exec", paths + ["-o", ref_out] + list(flags),
              cwd=str(tmp_path))
-    assert cli.main(paths + ["-o", tpu_out] + list(flags)) == 0
-    return _assert_files_equal(ref_out, tpu_out, exts)
+    assert cli.main(paths + ["-o", our_out] + list(flags)) == 0
+    return _assert_files_equal(ref_out, our_out, exts)
 
 
 def test_config1_strict_mums_4_genomes(rng, tmp_path, ref_bins):
@@ -106,24 +106,24 @@ def test_config4_anchor_merge_vs_reference(rng, tmp_path, ref_bins):
     genomes = _genomes(rng, 8, base_len=1200, n_mut=12)
     paths = _write_fastas(tmp_path, genomes, [f"g{i}" for i in range(8)])
     parts = [[paths[0]] + paths[1:4], [paths[0]] + paths[4:]]
-    tpu_mums = []
+    our_mums = []
     for pi, part in enumerate(parts):
         ref_out = str(tmp_path / f"ref_p{pi}")
-        tpu_out = str(tmp_path / f"tpu_p{pi}")
+        our_out = str(tmp_path / f"our_p{pi}")
         _run_ref(ref_bins, "mumemto_exec",
                  part + ["-o", ref_out, "-M", "-n"], cwd=str(tmp_path))
-        assert cli.main(part + ["-o", tpu_out, "-M", "-n"]) == 0
-        _assert_files_equal(ref_out, tpu_out, [".mums", ".athresh"])
-        tpu_mums.append(tpu_out + ".mums")
+        assert cli.main(part + ["-o", our_out, "-M", "-n"]) == 0
+        _assert_files_equal(ref_out, our_out, [".mums", ".athresh"])
+        our_mums.append(our_out + ".mums")
     # merge the IDENTICAL partition artifacts with both mergers
     ref_merged = str(tmp_path / "ref_merged")
     _run_ref(ref_bins, "anchor_merge",
-             tpu_mums + ["-o", ref_merged], cwd=str(tmp_path))
-    tpu_merged = str(tmp_path / "tpu_merged.mums")
-    assert cli.main(["merge"] + tpu_mums + ["-o", tpu_merged]) == 0
+             our_mums + ["-o", ref_merged], cwd=str(tmp_path))
+    our_merged = str(tmp_path / "our_merged.mums")
+    assert cli.main(["merge"] + our_mums + ["-o", our_merged]) == 0
     with open(ref_merged + ".mums", "rb") as f:
         want = f.read()
-    with open(tpu_merged, "rb") as f:
+    with open(our_merged, "rb") as f:
         got = f.read()
     assert got == want
     assert want
@@ -183,8 +183,8 @@ def test_multi_contig_fastas(rng, tmp_path, ref_bins):
                              for c, seq in enumerate(contigs)))
         paths.append(str(p))
     ref_out = str(tmp_path / "ref_out")
-    tpu_out = str(tmp_path / "tpu_out")
+    our_out = str(tmp_path / "our_out")
     _run_ref(ref_bins, "mumemto_exec", paths + ["-o", ref_out, "-l", "15"],
              cwd=str(tmp_path))
-    assert cli.main(paths + ["-o", tpu_out, "-l", "15"]) == 0
-    _assert_files_equal(ref_out, tpu_out, [".mums", ".lengths"])
+    assert cli.main(paths + ["-o", our_out, "-l", "15"]) == 0
+    _assert_files_equal(ref_out, our_out, [".mums", ".lengths"])
